@@ -1,4 +1,4 @@
-"""monetdb_tpu — a TPU-native vectorized analytical query engine.
+"""monetdb_tpu — a vectorized analytical query engine in JAX.
 
 Built from scratch in JAX/XLA (Pallas for hot kernels) with the capabilities
 of MonetDB's GDK column kernel and SQL stack (reference layout documented in

@@ -28,7 +28,7 @@ def main() -> None:
     repo = os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.join(repo, "tests"))
-    from tpch_sqlite_oracle import ORACLE, load_sqlite
+    from tpch_sqlite_oracle import ORACLE, add_indexes, load_sqlite
 
     from monetdb_tpu.bench.tpch_gen import gen_tpch
 
@@ -40,25 +40,9 @@ def main() -> None:
     con = load_sqlite(data)
     print(f"sqlite load: {time.perf_counter()-t0:.1f}s", file=sys.stderr)
     # match the analytical setup a tuned CPU run would use: key indexes
-    # (the analog of MonetDB's hash indexes, gdk_hash.c) + stats + big cache
-    con.execute("pragma cache_size = -2000000")  # 2 GB page cache
+    # + stats + big cache
     t0 = time.perf_counter()
-    for ddl in (
-        "create index idx_l_ok on lineitem(l_orderkey)",
-        "create index idx_l_pk on lineitem(l_partkey, l_suppkey)",
-        "create index idx_l_sk on lineitem(l_suppkey)",
-        "create index idx_o_ok on orders(o_orderkey)",
-        "create index idx_o_ck on orders(o_custkey)",
-        "create index idx_c_ck on customer(c_custkey)",
-        "create index idx_p_pk on part(p_partkey)",
-        "create index idx_ps_pk on partsupp(ps_partkey, ps_suppkey)",
-        "create index idx_ps_sk on partsupp(ps_suppkey)",
-        "create index idx_s_sk on supplier(s_suppkey)",
-        "create index idx_n_nk on nation(n_nationkey)",
-        "create index idx_r_rk on region(r_regionkey)",
-    ):
-        con.execute(ddl)
-    con.execute("analyze")
+    add_indexes(con)
     print(f"index+analyze: {time.perf_counter()-t0:.1f}s", file=sys.stderr)
 
     def run_capped(sql: str, cap_s: float = 300.0):

@@ -2,8 +2,8 @@
 
 These are the XLA-fused forms of the engine's hot paths — what the
 operator-at-a-time executor's kernels fuse into when a whole query fragment
-is jitted (the plan-fragment-jit milestone). Q6 = scan-filter + reduce at
-HBM bandwidth; Q1 = filter + dense-domain grouped aggregation
+is jitted (the plan-fragment-jit milestone). Q6 = scan-filter + reduce,
+bandwidth-bound; Q1 = filter + dense-domain grouped aggregation
 (BATselect + BATgroup/BATgroupsum fused, gdk/gdk_select.c + gdk_aggr.c)."""
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ def q1_step(code, shipdate, qty, extp, disc, tax, cutoff, *, domain: int = 8):
     one_plus = 100 + tax
     dp = extp * one_minus
     ch = dp * one_plus
-    # one-hot masked reduction per dense-domain slot: the TPU-safe segmented
-    # sum for small domains (s64 scatter-add faults the v5e worker)
+    # one-hot masked reduction per dense-domain slot: the engine's segmented
+    # sum for small domains (exec/fragment.py _SegReduce)
     oh = m[:, None] & (code[:, None] == jax.lax.iota(jnp.int32, domain)[None])
 
     def seg(v):

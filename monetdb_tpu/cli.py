@@ -119,7 +119,7 @@ class Shell:
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="monetdb_tpu",
-                                 description="TPU-native SQL shell")
+                                 description="monetdb_tpu SQL shell")
     ap.add_argument("database", nargs="?", default=None,
                     help="database directory (embedded mode)")
     ap.add_argument("--host", default=None)

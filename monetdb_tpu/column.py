@@ -1,6 +1,6 @@
 """Column substrate: device array + host descriptor.
 
-This is the TPU re-imagining of the reference's BAT (gdk/gdk.h:545-804): a
+This is the device-array re-imagining of the reference's BAT (gdk/gdk.h:545-804): a
 column is a dense array of fixed-width values with a host-side descriptor
 carrying the property flags (sorted/revsorted/key/nonil, min/max) that drive
 kernel selection, exactly as COLrec's ``tsorted``/``tkey``/``tnonil`` drive

@@ -1,4 +1,4 @@
-"""Logical type system for the TPU column engine.
+"""Logical type system for the column engine.
 
 Design (see SURVEY.md §2.1 "Atoms"): the reference models types as *atoms* with
 fixed physical width and a per-type nil sentinel (reference: gdk/gdk_atoms.h:156

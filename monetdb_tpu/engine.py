@@ -236,7 +236,7 @@ class Engine:
     """SQL in, rows out.  With a ``mesh`` (jax.sharding.Mesh over >1
     devices) fused plans execute SPMD across the mesh - the reference's
     mitosis/mergetable intra-query parallelism (opt_mitosis.c:21) realized
-    as shard_map + psum over ICI (exec/fragment.py _run_spmd)."""
+    as shard_map + psum across devices (exec/fragment.py _run_spmd)."""
 
     def __init__(self, catalog: Catalog, mesh=None, spmd_auto=False):
         self.catalog = catalog

@@ -1,4 +1,4 @@
-"""Dataflow scheduler + resource admission — the TPU-host analog of the
+"""Dataflow scheduler + resource admission — the host-side analog of the
 reference's MAL dataflow engine.
 
 Reference mapping:

@@ -1787,7 +1787,7 @@ class Executor:
     def _eval_geom(self, e: Func, fr: Frame):
         """Geometry functions (geom/monetdb5/geom.c + geomBulk.c bulk
         variants, SQL surface geom/sql/40_geom.sql) — see ops/geom.py for
-        the TPU lowering."""
+        the device lowering."""
         from ..ops import geom as GM
         from ..obs import set_algorithm
         name = e.name

@@ -3,8 +3,8 @@
 dbfarm, status registry, multiplex-funnel).
 
 Differences from the reference, by design: databases run as in-process
-Server threads rather than forked mserver processes (the TPU runtime owns
-one process per host; isolation comes from per-Database state), so
+Server threads rather than forked mserver processes (one process per host
+owns the devices; isolation comes from per-Database state), so
 "supervision" is lifecycle management rather than babysitting PIDs. The
 status registry is a JSON file in the farm root (msabaoth's status-file
 scheme, common/utils/msabaoth.h:78-87).

@@ -1,4 +1,4 @@
-"""Operator kernel library — the TPU analog of the reference's GDK operator
+"""Operator kernel library — the device analog of the reference's GDK operator
 set (gdk/gdk_select.c, gdk_join.c, gdk_group.c, gdk_aggr.c, gdk_calc*.c,
 gdk_batop.c sorting, gdk_firstn.c, gdk_analytic*.c).
 

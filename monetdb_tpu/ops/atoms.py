@@ -1,7 +1,7 @@
 """Auxiliary atom functions — uuid / url / inet (reference:
 monetdb5/modules/atoms/{uuid,url,inet}.c, ~4k LoC of C type machinery).
 
-TPU design: these types live as canonical strings in the dictionary
+Design: these types live as canonical strings in the dictionary
 substrate (order-preserving codes on device); their functions run once per
 distinct value on the host like every other dictionary op. This preserves
 the reference's semantics (parsing, component extraction, CIDR containment)

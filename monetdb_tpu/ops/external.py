@@ -1,15 +1,15 @@
-"""Out-of-HBM column processing: host-resident columns streamed through
-the chip in bounded tiles — the TPU analog of the reference's
+"""Out-of-device-memory column processing: host-resident columns streamed
+through the device in bounded tiles — the analog of the reference's
 beyond-memory mmap policy (STORE_MMAP, gdk/gdk_heap.c; candidate-list
 slice streaming + mitosis memory-aware piece sizing,
 monetdb5/optimizer/opt_mitosis.c:150-190).
 
 North-star config 3 (BASELINE.md): 1B-row sort / window on one host.
-A 1B-row int64 column is 8 GB — it *fits* in v5e HBM but a monolithic
+A 1B-row int64 column is 8 GB — it *fits* in device memory but a monolithic
 device sort does not (XLA sort working set is a small multiple of the
 input), and larger columns don't fit at all.  So:
 
-* :func:`external_sort` — sample sort: device-sort HBM-sized tiles,
+* :func:`external_sort` — sample sort: device-sort memory-sized tiles,
   range-partition them by splitters taken from a device-sorted sample,
   then device-sort each bounded range bucket; concatenation of bucket
   results is globally sorted.  Every device step is O(tile), host memory
@@ -17,7 +17,7 @@ input), and larger columns don't fit at all.  So:
 * :func:`streaming_cumsum` / :func:`streaming_window_sum` — windowed
   aggregates as a tile scan with carried state (prefix carry, w-1 halo),
   the GDKanalytical sliding-frame role (gdk/gdk_analytic_bounds.c) at
-  out-of-HBM scale.
+  out-of-device-memory scale.
 """
 
 from __future__ import annotations

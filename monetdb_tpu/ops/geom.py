@@ -1,4 +1,4 @@
-"""Geometry module — the TPU-native rebuild of the reference's geom/
+"""Geometry module — the JAX rebuild of the reference's geom/
 extension (geom/monetdb5/geom.c ~5.9k LoC + geomBulk.c bulk variants +
 geod.c geodesic functions, SQL surface geom/sql/40_geom.sql).
 
@@ -43,7 +43,7 @@ __all__ = ["Geom", "parse_wkt", "format_wkt", "point_xy", "st_distance",
            "geom_boolean", "convex_hull", "geom_buffer", "geom_relate"]
 
 # WGS84 mean Earth radius (m); geod.c computes exact WGS84 geodesics via
-# the ellipsoid — the spherical great-circle is the TPU-kernel-friendly
+# the ellipsoid — the spherical great-circle is the vectorizable
 # approximation (<0.5% error), documented at the SQL surface.
 GEOD_RADIUS = 6371008.8
 

@@ -6,7 +6,7 @@ col2 + groups → groups'), which is how n-ary keys avoid tuple
 materialization. Outputs: per-row group ids, extents (representative oid per
 group, usable as a candidate list), and histo (group sizes).
 
-The reference documents 6 strategies (gdk_group.c:20-60). The TPU build
+The reference documents 6 strategies (gdk_group.c:20-60). This engine
 keeps the property-driven dispatch with three:
 
 * ``dense``  — small known domain (dict codes, bools, bounded ints):
@@ -17,7 +17,7 @@ keeps the property-driven dispatch with three:
   prefix sum (reference strategy 3, consecutive-compare).
 * ``sort``   — general: lexicographic device sort of (prev_id, value) with
   row payload, boundary flags, prefix-sum ids, scatter back (replaces the
-  reference's hash strategies; XLA's sort is the TPU-efficient primitive).
+  reference's hash strategies; XLA's sort is the device primitive).
 
 Group ids are aligned to the *base* rows (capacity array); rows outside the
 candidate get id -1. ``ngroups`` is a host int (one sync — the reference

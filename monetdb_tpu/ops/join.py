@@ -9,8 +9,8 @@ Contract preserved (gdk/gdk_join.c:30-70): joins return aligned oid pairs
 nil (-1) right oids on miss; markjoin adds the 3-valued certainty flag for
 NOT IN semantics; ``nil_matches`` toggles nil-as-value.
 
-TPU strategy: the hash table is replaced by *sort + searchsorted* — the
-device-native equivalent (XLA sort runs at HBM bandwidth; probe is a
+Device strategy: the hash table is replaced by *sort + searchsorted* — the
+device-native equivalent (one device sort; probe is a
 vectorized binary search). Property fast paths mirror the reference:
 
 * fetchjoin — right is a dense key sequence (PKs!): roid = key - min, O(1).

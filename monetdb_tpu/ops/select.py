@@ -4,8 +4,8 @@ kernels, plus candidate materialization (mask → oid compaction).
 The full (tl, th, li, hi, anti, nil_matches) truth table documented at
 gdk/gdk_select.c:1280-1340 is reproduced verbatim by :func:`select` — it is
 the compiled form of every SQL WHERE predicate. The reference picks between
-binary search on sorted columns, hash lookup, and scans; on TPU the scan is a
-single fused vector compare at HBM bandwidth, so the mask-compare is the
+binary search on sorted columns, hash lookup, and scans; on the device the
+scan is a single fused, bandwidth-bound vector compare, so the mask-compare is the
 default strategy. Nil handling: integer types use the most-negative sentinel
 (reference gdk/gdk_atoms.h:156), so predicates that would admit the sentinel
 (x < v, x != v, anti ranges) carry an explicit nil guard; float nil is NaN

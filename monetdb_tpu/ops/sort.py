@@ -2,7 +2,7 @@
 GDKrsort radix gdk/gdk_rsort.c, GDKssort stable merge gdk/gdk_ssort.c,
 GDKqsort gdk/gdk_qsort.c) and BATfirstn (gdk/gdk_firstn.c:1280).
 
-TPU design: all orderings are expressed as *monotone int64 key transforms*
+Design: all orderings are expressed as *monotone int64 key transforms*
 (floats via sign-magnitude bit trick, strings via order-preserving dict
 codes, descending via bitwise complement), then one multi-operand
 ``lax.sort`` with the row id as payload gives a stable lexicographic
@@ -125,7 +125,7 @@ def firstn(cols: Sequence[Column], n: int, descending=None, nils_last=None,
 
     Single-key: lax.top_k over the monotone key transform (O(n log k)).
     Multi-key / candidate-filtered: full device sort then prefix (lax.sort
-    at HBM bandwidth replaces the reference's heap strategies)."""
+    replaces the reference's heap strategies)."""
     k = len(cols)
     descending = descending or [False] * k
     nils_last = nils_last or [None] * k

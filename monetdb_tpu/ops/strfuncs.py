@@ -2,7 +2,7 @@
 
 The reference implements bulk string ops as C loops over the string heap
 (gdk/gdk_string.c, modules/kernel/batstr.c ~9.6k+5.9k LoC) and prefilters
-LIKE with string imprints (gdk/gdk_strimps.c). The TPU design makes the
+LIKE with string imprints (gdk/gdk_strimps.c). The design makes the
 dictionary the unit of string work: any per-value function or predicate runs
 once per *distinct* value on the host, and the device applies the result
 with a single gather by code — asymptotically cheaper than the reference's
@@ -278,7 +278,7 @@ def rpad(col, k: int, fill: str = " "):
 # levenshtein w/ costs, dameraulevenshtein, jarowinkler, soundex,
 # difference, qgramnormalize). Host DP over the dictionary's distinct
 # values, one device gather per call — the dict is tiny relative to the
-# column so this is bandwidth-optimal on TPU.
+# column, so this moves few bytes.
 # ======================================================================
 def _lev(a: str, b: str, ins: int = 1, dele: int = 1, sub: int = 1) -> int:
     if a == b:

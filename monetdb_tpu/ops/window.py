@@ -4,11 +4,11 @@ gdk_analytic_func.c diff/ntile/lag/lead/first/last/nth,
 gdk_analytic_statistics.c framed aggregates; segment-tree sliding
 aggregates via GDKinitialize_segment_tree gdk/gdk_analytic.h:59).
 
-TPU design: a window computation is expressed over rows *pre-sorted by
+Design: a window computation is expressed over rows *pre-sorted by
 (partition, order)* (the SQL layer emits the sort, as the reference's
 sql_rank.c does). Partition boundaries are a diff mask; ranking functions
 are prefix sums over boundary-reset sequences (associative scans — the
-natural TPU form of the reference's sequential loops); framed aggregates
+natural device form of the reference's sequential loops); framed aggregates
 use prefix sums with searchsorted frame bounds instead of segment trees
 (O(1) per row after one scan for invertible aggregates; min/max via
 log-step sweeps later).
@@ -442,7 +442,7 @@ def _mm_identity(dtype, func):
 # (gdk/gdk_analytic_bounds.c GDKanalyticalwindowbounds :1440; the sliding
 # min/max uses an O(n log n) sparse table instead of the reference's
 # segment tree — both answer arbitrary [s,e) range queries, the sparse
-# table in two gathers per row, which is the TPU-friendly form)
+# table in two gathers per row, which is the vectorizable form)
 # ---------------------------------------------------------------------------
 
 

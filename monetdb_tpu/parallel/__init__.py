@@ -1,4 +1,4 @@
-"""Intra-query data parallelism over a jax.sharding.Mesh — the TPU-native
+"""Intra-query data parallelism over a jax.sharding.Mesh — the device-native
 replacement for the reference's mitosis/mergetable/mat.pack pipeline
 (monetdb5/optimizer/opt_mitosis.c, opt_mergetable.c, modules/mal/mat.c):
 rows are hash/range-partitioned across chips, operators run as SPMD

@@ -7,10 +7,12 @@ concatenates with mat.pack (modules/mal/mat.c:124). Grouped aggregates run
 two-phase: per-piece partials + a combine step (opt_mergetable.c:15-27,
 BATgroupavg3combine gdk/gdk_aggr.c:2634).
 
-TPU mapping: a 1-D device mesh over the row axis; columns live sharded in
-HBM (`NamedSharding(P("rows"))`); operators are `shard_map`-ped kernels;
-the combine step is `jax.lax.psum` over the mesh axis — XLA compiles the
-whole two-phase aggregate into one program with the collective on ICI.
+Device mapping: a 1-D device mesh over the row axis; columns live sharded
+in device memory (`NamedSharding(P("rows"))`); operators are
+`shard_map`-ped kernels; the combine step is `jax.lax.psum` over the mesh
+axis — XLA compiles the whole two-phase aggregate into one program with the
+collective between devices.  The mesh follows the algorithm: on one host
+the GPUs reach each other all to all over NVLink.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def default_mesh():
 
 
 def shard_array(arr: np.ndarray, mesh: Mesh, fill=0) -> jax.Array:
-    """Pad to a multiple of the mesh size and place row-sharded in HBM."""
+    """Pad to a multiple of the mesh size and place row-sharded on the mesh."""
     n = mesh.devices.size
     cap = -(-len(arr) // n) * n
     if cap != len(arr):

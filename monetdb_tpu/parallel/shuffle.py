@@ -1,7 +1,7 @@
 """Distributed shuffle: ragged all-to-all hash-partition exchange over the
 device mesh — the feature the reference does NOT have (its remote joins ship
 whole columns to one site, modules/mal/remote.c:971 RMTput; SURVEY §2.7
-names this the scalability gap the TPU build fills).
+names this the scalability gap this engine fills).
 
 Design (static-shape discipline):
   1. counts pass — each shard histograms its rows by destination
@@ -10,7 +10,7 @@ Design (static-shape discipline):
      shape pattern used engine-wide).
   2. pack — stable sort rows by destination, scatter into a [D, C] send
      buffer per column (padding = nil).
-  3. exchange — lax.all_to_all over the mesh axis (rides ICI).
+  3. exchange — lax.all_to_all over the mesh axis (between devices).
   4. unpack — received [D, C] lanes flatten into the local partition with a
      validity mask derived from the exchanged counts.
 
@@ -88,8 +88,7 @@ def shuffle(mesh: Mesh, key: jax.Array, payloads: List[jax.Array],
         n = d.shape[0]
         order = jnp.argsort(d, stable=True)
         d_s = d[order]
-        # counts per destination from the sorted run boundaries (no
-        # scatter: TPU serializes scatter-adds)
+        # counts per destination from the sorted run boundaries
         ends = jnp.searchsorted(d_s, jnp.arange(D, dtype=d_s.dtype),
                                 side="right", method="sort")
         offs = jnp.concatenate([jnp.zeros(1, ends.dtype), ends[:-1]])

@@ -1,6 +1,6 @@
 """Binder / planner: AST → typed logical plan.
 
-This is the TPU engine's condensation of the reference's semantic layer:
+This is the engine's condensation of the reference's semantic layer:
 name resolution & typing (sql/server/rel_select.c, sql_semantic.c),
 subquery unnesting (rel_unnest.c — here: targeted decorrelation of
 correlated EXISTS/scalar-aggregate subqueries into semi/anti/equi joins on

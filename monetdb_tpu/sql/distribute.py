@@ -14,7 +14,7 @@ Reference mapping:
                                            MAL text (here: SQL text, since our
                                            wire protocol speaks SQL)
 
-Design note (TPU-first): a remote member's rows land on this host and are
+Design note: a remote member's rows land on this host and are
 re-dictionary-encoded into device columns; per-member filters are pushed to
 the remote server so only surviving rows cross the network — the reference
 ships whole columns (RMTput), which SURVEY.md §2.7 flags as its scalability

@@ -1,4 +1,4 @@
-"""Persistence layer — the TPU engine's condensation of the reference's
+"""Persistence layer — the engine's condensation of the reference's
 storage stack: BBP directory + atomic-rename commit protocol
 (gdk/gdk_bbp.c:12-66), write-ahead log (gdk/gdk_logger.c), delta column
 storage with visibility (sql/storage/bat/bat_storage.c), checkpointing

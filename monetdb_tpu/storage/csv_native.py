@@ -32,10 +32,14 @@ def _build() -> Optional[str]:
     if (os.path.exists(_SO)
             and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
         return _SO
+    # build under a private name, then rename: concurrent processes never
+    # load a half-written library
+    tmp = f"{_SO}.{os.getpid()}"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-std=c++17",
-           _SRC, "-o", _SO]
+           _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return _SO
     except Exception:
         return None

@@ -11,7 +11,7 @@ arrays built with jax.make_array_from_process_local_data, and verify
 exact parity against a host numpy oracle.  A scaling-efficiency probe
 (rows/s on the 8-device 2-process mesh vs a 4-device single-process
 run) is reported; on emulated CPU devices the number is indicative
-only, but the CODE PATH is the one multi-host TPU would execute.
+only, but the CODE PATH is the one a multi-host mesh would execute.
 
 Opt-in (spawns processes, ~2 min): MTPU_MULTIHOST=1.
 """

@@ -31,31 +31,23 @@ def engine(data):
 
 @pytest.fixture(scope="module")
 def oracle_con(data):
-    from tpch_sqlite_oracle import load_sqlite
+    from tpch_sqlite_oracle import add_indexes, load_sqlite
     con = load_sqlite(data)
-    con.execute("create index idx_l_pk on lineitem(l_partkey, l_suppkey)")
-    con.execute("create index idx_l_ok on lineitem(l_orderkey)")
-    con.execute("create index idx_o_ck on orders(o_custkey)")
-    con.execute("analyze")
+    add_indexes(con)
     return con
 
 
 @sf1
 @pytest.mark.parametrize("q", list(range(1, 23)))
 def test_tpch_sf1_query(q, engine, oracle_con):
-    from test_tpch_sql import _convert_oracle_row, _norm, _row_eq
     from monetdb_tpu.bench.tpch_queries import QUERIES
-    from tpch_sqlite_oracle import ORACLE
+    from tpch_sqlite_oracle import ORACLE, convert_row, mismatch
 
     res = engine.query(QUERIES[q])
     want_raw = oracle_con.execute(ORACLE[q]).fetchall()
-    want = [_convert_oracle_row(r, res.types) for r in want_raw]
-    assert len(res.rows) == len(want), \
-        f"q{q}: {len(res.rows)} rows != oracle {len(want)}"
-    got_sorted = sorted(res.rows, key=lambda r: str(_norm(r)))
-    want_sorted = sorted(want, key=lambda r: str(_norm(r)))
-    for ra, rb in zip(got_sorted, want_sorted):
-        assert _row_eq(ra, rb), f"q{q}: {ra} != {rb}"
+    want = [convert_row(r, res.types) for r in want_raw]
+    err = mismatch(res.rows, want)
+    assert err is None, f"q{q}: {err}"
 
 
 @sf1

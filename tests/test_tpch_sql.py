@@ -3,22 +3,16 @@ compared row-for-row against the independent sqlite oracle (the .ans-file
 role, see tests/tpch_sqlite_oracle.py). Integer/decimal/string/date values
 must match exactly; floats to 1e-9 relative."""
 
-import datetime
-from decimal import Decimal
-
-import numpy as np
 import pytest
 
 from monetdb_tpu.bench.tpch_gen import gen_tpch
 from monetdb_tpu.bench.tpch_load import load_tables
 from monetdb_tpu.bench.tpch_queries import QUERIES
-from monetdb_tpu.dtypes import Kind
 from monetdb_tpu.engine import Engine
 
-from tpch_sqlite_oracle import ORACLE, load_sqlite
+from tpch_sqlite_oracle import ORACLE, convert_row, load_sqlite, mismatch
 
 SF = 0.01
-_EPOCH = datetime.date(1970, 1, 1)
 
 
 @pytest.fixture(scope="module")
@@ -36,57 +30,10 @@ def oracle_con(data):
     return load_sqlite(data)
 
 
-def _convert_oracle_row(row, types):
-    out = []
-    for v, t in zip(row, types):
-        if v is None:
-            out.append(None)
-        elif t is not None and t.kind == Kind.DECIMAL:
-            out.append(Decimal(int(v)).scaleb(-t.scale))
-        elif t is not None and t.kind == Kind.DATE:
-            out.append(_EPOCH + datetime.timedelta(days=int(v)))
-        elif isinstance(v, float):
-            out.append(v)
-        elif t is not None and t.np_dtype.kind == "f":
-            out.append(float(v))
-        else:
-            out.append(v)
-    return tuple(out)
-
-
-def _row_eq(a, b):
-    if len(a) != len(b):
-        return False
-    for x, y in zip(a, b):
-        if x is None or y is None:
-            if x is not y:
-                return False
-        elif isinstance(x, float) or isinstance(y, float):
-            if abs(float(x) - float(y)) > 1e-9 * max(1.0, abs(float(y))):
-                return False
-        elif x != y:
-            return False
-    return True
-
-
-def _norm(r):
-    return tuple("~" if isinstance(v, float) else v for v in r)
-
-
 @pytest.mark.parametrize("q", list(range(1, 23)))
 def test_tpch_query(q, engine, oracle_con):
     res = engine.query(QUERIES[q])
     want_raw = oracle_con.execute(ORACLE[q]).fetchall()
-    want = [_convert_oracle_row(r, res.types) for r in want_raw]
-    assert len(res.rows) == len(want), \
-        f"q{q}: {len(res.rows)} rows, expected {len(want)}"
-    mismatches = [(i, g, w) for i, (g, w) in enumerate(zip(res.rows, want))
-                  if not _row_eq(g, w)]
-    if mismatches:
-        # tolerate permutations among rows whose sort keys tie: compare as
-        # multisets before failing hard
-        got_s = sorted(res.rows, key=lambda r: repr(_norm(r)))
-        want_s = sorted(want, key=lambda r: repr(_norm(r)))
-        pairs = list(zip(got_s, want_s))
-        bad = [(g, w) for g, w in pairs if not _row_eq(g, w)]
-        assert not bad, f"q{q}: first diffs {mismatches[:3]}"
+    want = [convert_row(r, res.types) for r in want_raw]
+    err = mismatch(res.rows, want)
+    assert err is None, f"q{q}: {err}"

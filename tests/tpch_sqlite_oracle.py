@@ -13,10 +13,16 @@ the engine's outputs.
 
 from __future__ import annotations
 
+import datetime
 import sqlite3
+from decimal import Decimal
 from typing import Dict
 
 import numpy as np
+
+from monetdb_tpu.dtypes import Kind
+
+_EPOCH = datetime.date(1970, 1, 1)
 
 
 def _days(s: str) -> int:
@@ -33,19 +39,97 @@ def load_sqlite(data: Dict[str, Dict[str, np.ndarray]]) -> sqlite3.Connection:
     for tname, cols in data.items():
         names = list(cols)
         con.execute(f"create table {tname} ({', '.join(names)})")
-        arrs = [cols[n] for n in names]
-        pyarrs = []
-        for a in arrs:
-            if a.dtype.kind in "iu":
-                pyarrs.append([int(v) for v in a])
-            else:
-                pyarrs.append([str(v) for v in a])
+        pyarrs = [a.tolist() if a.dtype.kind in "iu" else
+                  a.astype(str).tolist() for a in (cols[n] for n in names)]
         rows = list(zip(*pyarrs))
         con.executemany(
             f"insert into {tname} values ({','.join('?' * len(names))})",
             rows)
     con.commit()
     return con
+
+
+def add_indexes(con: sqlite3.Connection) -> None:
+    """Key indexes (the role of MonetDB's hash indexes, gdk_hash.c),
+    planner statistics and a 2 GB page cache: without the full set,
+    sqlite's plan for Q5 grows superlinearly with the scale factor."""
+    con.execute("pragma cache_size = -2000000")
+    for ddl in (
+        "create index idx_l_ok on lineitem(l_orderkey)",
+        "create index idx_l_pk on lineitem(l_partkey, l_suppkey)",
+        "create index idx_l_sk on lineitem(l_suppkey)",
+        "create index idx_o_ok on orders(o_orderkey)",
+        "create index idx_o_ck on orders(o_custkey)",
+        "create index idx_c_ck on customer(c_custkey)",
+        "create index idx_p_pk on part(p_partkey)",
+        "create index idx_ps_pk on partsupp(ps_partkey, ps_suppkey)",
+        "create index idx_ps_sk on partsupp(ps_suppkey)",
+        "create index idx_s_sk on supplier(s_suppkey)",
+        "create index idx_n_nk on nation(n_nationkey)",
+        "create index idx_r_rk on region(r_regionkey)",
+    ):
+        con.execute(ddl)
+    con.execute("analyze")
+
+
+def convert_row(row, types):
+    """An oracle row in the physical domain -> the engine's Python values
+    (Decimal at the column's scale, datetime.date for epoch days)."""
+    out = []
+    for v, t in zip(row, types):
+        if v is None:
+            out.append(None)
+        elif t is not None and t.kind == Kind.DECIMAL:
+            out.append(Decimal(int(v)).scaleb(-t.scale))
+        elif t is not None and t.kind == Kind.DATE:
+            out.append(_EPOCH + datetime.timedelta(days=int(v)))
+        elif isinstance(v, float):
+            out.append(v)
+        elif t is not None and t.np_dtype.kind == "f":
+            out.append(float(v))
+        else:
+            out.append(v)
+    return tuple(out)
+
+
+def row_eq(a, b, floor: float = 1.0):
+    """Exact equality except floats, which agree with the expected value
+    ``b`` to 1e-9 relative to its magnitude or to ``floor``, whichever is
+    larger (floats differ by summation order)."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x is None or y is None:
+            if x is not y:
+                return False
+        elif isinstance(x, float) or isinstance(y, float):
+            x, y = float(x), float(y)
+            if abs(x - y) > 1e-9 * max(floor, abs(y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def norm(r):
+    """Sort key that ignores float columns (ties among float-keyed rows)."""
+    return tuple("~" if isinstance(v, float) else v for v in r)
+
+
+def mismatch(got, want, floor: float = 1.0):
+    """None when ``got`` equals ``want`` row for row, or as multisets
+    (rows whose ORDER BY keys tie may come in either order); else a
+    message naming the first differences."""
+    if len(got) != len(want):
+        return f"{len(got)} rows, expected {len(want)}"
+    diffs = [(g, w) for g, w in zip(got, want) if not row_eq(g, w, floor)]
+    if not diffs:
+        return None
+    got_s = sorted(got, key=lambda r: repr(norm(r)))
+    want_s = sorted(want, key=lambda r: repr(norm(r)))
+    if all(row_eq(g, w, floor) for g, w in zip(got_s, want_s)):
+        return None
+    return f"first diffs {diffs[:3]}"
 
 
 # epoch-day constants used by the queries
